@@ -1,13 +1,12 @@
-"""nfllib_tpu — TPU-native ideal-lattice polynomial arithmetic.
+"""nfllib_tpu — ideal-lattice polynomial arithmetic in JAX.
 
-A brand-new JAX/XLA/Pallas framework with the capabilities of quarkslab/NFLlib
+A JAX/XLA library with the capabilities of quarkslab/NFLlib
 (reference mounted at /root/reference): negacyclic NTT over power-of-two
 cyclotomic rings in CRT/RNS form, fused modular elementwise ops, cryptographic
 sampling (Salsa20 stream PRNG; uniform / bounded / ternary / Hamming-weight /
 discrete-Gaussian polynomial generators), CRT lifting to big integers, and
-NFLlib-compatible serialization — designed TPU-first (residue channels and
-batches shard over device meshes; hot kernels in Pallas; XLA fusion replaces
-expression templates).
+NFLlib-compatible serialization.  Residue channels and batches shard over
+device meshes, and XLA fusion replaces expression templates.
 
 Exact 62-bit limb arithmetic requires 64-bit integer support, so x64 mode is
 enabled at import (before any tracing).

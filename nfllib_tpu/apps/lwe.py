@@ -20,7 +20,6 @@ from __future__ import annotations
 import dataclasses
 import functools
 import inspect
-import os
 
 import jax
 import jax.numpy as jnp
@@ -59,49 +58,9 @@ def keygen(ring: Ring, stream: Salsa20Stream,
     return LweKeys(s=s, sprime=sprime, pka=pka, pkb=pkb)
 
 
-def _fused_chain_module(ring):
-    """Kernel module for whole encrypt/decrypt chains (transform + pointwise
-    combines in one VMEM residency), or None for the jnp graphs whose NTT
-    calls dispatch to the fused MXU kernels (ops/ntt.py).
-
-    Wherever an MXU transform kernel applies, None wins: measured on-chip,
-    the jnp graph with MXU transforms beats the VPU chain kernels 9.9x/2.3x
-    (encrypt/decrypt, u32 n=2^14 x 17ch) and 28x/1.7x (u64 n=8192) — chain
-    fusion saves HBM passes but pins the transform to the VPU, and the MXU
-    transform advantage dominates.  The VPU chain kernels serve the shapes
-    the MXU kernels can't (u64 degrees > 65536) and NFL_TPU_NTT=pallas
-    mode; =jnp opts out of kernels entirely."""
-    from ..ops.ntt import auto_on_tpu, kernel_mode
-    mode = kernel_mode()
-    if mode == "jnp":
-        return None
-    if ring.limb == "u64":
-        from ..ops import ntt_mxu_u64, ntt_pallas_u64
-        if ntt_mxu_u64.supports_fused(ring) and mode != "pallas":
-            return None              # jnp graph + MXU u64 transforms wins
-        mod = ntt_pallas_u64
-    else:
-        from ..ops import ntt_mxu, ntt_pallas
-        if ntt_mxu.supports_fused(ring) and mode != "pallas":
-            return None              # jnp graph + MXU transforms wins
-        mod = ntt_pallas
-    if not mod.supports(ring):
-        return None
-    if mode in ("pallas", "mxu"):
-        return mod
-    return mod if auto_on_tpu() else None
-
-
-def _use_fused_chain(ring) -> bool:
-    return _fused_chain_module(ring) is not None
-
-
 def _encrypt_graph(ctx, pka, pkb, u, e1, e2):
     """Pure compute graph on residue tensors; u/e1/e2 are coefficient-domain
     noise, outputs are the NTT-domain ciphertext halves."""
-    mod = _fused_chain_module(ctx.ring)
-    if mod is not None:
-        return mod.lwe_encrypt_fused(u, e1, e2, pka, pkb, ctx)
     p_col = jnp.asarray(ctx.p_col)
     pn_col = jnp.asarray(ctx.pn_col)
     un = ntt.ntt_pow_phi(u, ctx)
@@ -114,14 +73,9 @@ def _encrypt_graph(ctx, pka, pkb, u, e1, e2):
 
 def _decrypt_graph(ctx, resa, resb, s, sprime):
     p_col = jnp.asarray(ctx.p_col)
-    mod = _fused_chain_module(ctx.ring)
-    if mod is not None:
-        tmp = mod.lwe_decrypt_fused(resa, resb, s, sprime, ctx)
-    else:
-        pn_col = jnp.asarray(ctx.pn_col)
-        tmp = modops.submod(resb, modops.mulmod(resa, s, p_col, pn_col),
-                            p_col)
-        tmp = ntt.invntt_pow_invphi(tmp, ctx)
+    pn_col = jnp.asarray(ctx.pn_col)
+    tmp = modops.submod(resb, modops.mulmod(resa, s, p_col, pn_col), p_col)
+    tmp = ntt.invntt_pow_invphi(tmp, ctx)
     p0 = jnp.asarray(ctx.p[0])
     half = p0 // jnp.asarray(2, dtype=p0.dtype)
     bit = tmp % jnp.asarray(2, dtype=tmp.dtype)

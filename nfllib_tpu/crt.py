@@ -1,6 +1,6 @@
 """CRT lifting between RNS residues and big integers.
 
-TPU-native equivalent of the reference's GMP bridge (reference
+Equivalent of the reference's GMP bridge (reference
 include/nfl/gmp.hpp:113-219): device data stays in RNS; lifting happens on the
 host in exact Python integers.  The reference's Shoup-style reduction modulo
 the moduli product (gmp.hpp:198-204) is an exact algorithm, so plain

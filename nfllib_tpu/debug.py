@@ -1,7 +1,7 @@
 """Strict-mod debug checks (reference include/nfl/debug.hpp).
 
 The reference's CHECK_STRICTMOD compiles range-contract assertions into every
-modular op (debug.hpp:33-37, ops.hpp:131,148,190,211 ...).  The TPU-native
+modular op (debug.hpp:33-37, ops.hpp:131,148,190,211 ...).  Here the
 equivalent is a global flag that inserts jax.debug (host-callback) or eager
 assertions validating residues < p at op boundaries.  NTT_STRICTMOD (the final
 reduction to [0, p), debug.hpp:31) is always on, as in the reference.
@@ -13,7 +13,7 @@ import os
 import jax
 import jax.numpy as jnp
 
-_STRICT = os.environ.get("NFL_TPU_STRICTMOD", "0") not in ("0", "", "false")
+_STRICT = os.environ.get("NFL_STRICTMOD", "0") not in ("0", "", "false")
 
 
 def set_strictmod(enabled: bool) -> None:

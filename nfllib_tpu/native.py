@@ -1,6 +1,6 @@
 """ctypes loader for the native host runtime (csrc/nfl_native.cpp).
 
-The TPU framework's equivalent slot for the reference's native PRNG layer
+This library's equivalent slot for the reference's native PRNG layer
 (the qhasm Salsa20 assembly at lib/prng/*.s + fastrandombytes.cpp).  The
 library is built on demand with the system C++ compiler and cached next to
 the source; everything degrades gracefully to the numpy tier when no

@@ -1,6 +1,6 @@
-"""Elementwise modular arithmetic on residue tensors (jnp, TPU-friendly).
+"""Elementwise modular arithmetic on residue tensors (jnp).
 
-TPU-native equivalent of the reference's modular-op functor stratum
+Equivalent of the reference's modular-op functor stratum
 (reference: include/nfl/ops.hpp:100-242, include/nfl/opt/ops.hpp:7-78).
 Where the reference specializes each op per (scalar type x SIMD engine), here
 each op is a jnp function over arrays of any shape; XLA fuses chains of these
@@ -43,10 +43,10 @@ def repr_bits(dtype) -> int:
 def mulhi(x, y):
     """High word of the full product, per limb dtype.
 
-    u16 widens to u32 (native TPU lanes); u32 uses a 16-bit-split formulation
-    entirely in uint32 lanes (TPUs have no native 64-bit integers — XLA
-    emulates them, so staying in 32-bit ops is the fast path); u64 splits into
-    32-bit halves.
+    u16 widens to u32; u32 uses a 16-bit-split formulation entirely in
+    uint32 lanes (no 64-bit intermediate); u64 splits into 32-bit halves.
+    Whether a widening 32x32->64 multiply is faster on a given device is
+    left to measurement.
     """
     dt = jnp.dtype(x.dtype)
     if dt == jnp.dtype(jnp.uint16):
@@ -142,7 +142,8 @@ def _barrett_mulmod_u32(x, y, p):
     (fits uint32 because p > 2^29), q = hi32(a*m) = floor(a*m/2^32).
     q*p <= a*2^28 <= z and q > z/p - 3, so r = z - q*p (exact in wrapping
     32-bit arithmetic since r < 4p < 2^32) needs at most a 2p- and a
-    p-subtract.  Replaces the widen-to-u64 `%` (emulated division on TPU).
+    p-subtract.  Replaces the widen-to-u64 `%` with multiplies (no integer
+    division in the compiled program).
     """
     m = ((_U64(1) << 60) // p.astype(_U64)).astype(_U32)
     p32 = p.astype(_U32)
@@ -160,9 +161,9 @@ def _barrett_mulmod_u32(x, y, p):
 def mulmod(x, y, p, pn=None):
     """x * y mod p (generic path, reference ops.hpp:183-219).
 
-    The reference widens u16/u32 and uses `%` (one CPU instruction there);
-    on TPU integer division is emulated, so those tiers use a Barrett
-    reduction in native 32-bit lanes instead (bit-identical results).
+    The reference widens u16/u32 and uses `%`; here those tiers use a
+    Barrett reduction in 32-bit lanes instead, which needs no integer
+    division (bit-identical results).
     u64: Newton-quotient reduction with the precomputed Pn low word
     (reference ops.hpp:201-219), since no 128-bit dtype exists on device.
     """
@@ -194,8 +195,8 @@ def compute_shoup(y, p):
         w = _WIDER[dt]
         wbits = int(repr_bits(dt))
         if not isinstance(p, jax.core.Tracer):
-            # Barrett in the wider lanes — TPU integer division is emulated
-            # (O(bits) restoring), so replace % and // with two multiplies
+            # Barrett in the wider lanes: replace % and // with two
+            # multiplies (no integer division in the compiled program)
             # when p is a trace-time constant of the tier's standard
             # modulus width (u16: 14-bit, u32: 30-bit — every params.py
             # prime).  b = wbits-2, F = floor(2^(2b)/p) per modulus:

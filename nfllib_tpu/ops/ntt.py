@@ -1,12 +1,12 @@
 """Negacyclic NTT / inverse NTT on residue tensors (jnp implementation).
 
-TPU-native re-design of the reference NTT engine (reference
+Re-design of the reference NTT engine (reference
 include/nfl/core.hpp:438-614, include/nfl/algos.hpp:16-73): the same Harvey
 butterfly mathematics — lazy [0,2p) arithmetic, Shoup-precomputed twiddles,
 blocked twiddle tables, bit-reversed forward-domain ordering — expressed as
-whole-array stage transforms instead of scalar loops.  Under jit each stage is
-one fused elementwise pass; the residue-channel axis `m` and any batch axes
-are embarrassingly parallel (the reference's `cm` loop, core.hpp:597,610).
+whole-array stage transforms instead of scalar loops, left to XLA to compile
+for the device; the residue-channel axis `m` and any batch axes are
+embarrassingly parallel (the reference's `cm` loop, core.hpp:597,610).
 
 Shapes: data is [..., m, n]; twiddle tables come from RingContext ([m, n-1]
 blocked, [m, n] for the phi pre-twist).  Outputs of `ntt_pow_phi` are
@@ -20,97 +20,12 @@ are identical (multiplying by 1 lazily preserves the value mod p).
 """
 from __future__ import annotations
 
-import os
-
-import jax
 import jax.numpy as jnp
 
 from .. import debug
-from ..ring import Ring, RingContext
+from ..ring import RingContext
 from ..utils import static_log2
 from . import modops
-
-
-def _strict_bracket(fn, x, ctx):
-    """Strict-mod boundary checks around a Pallas/MXU kernel call: the
-    reference's CHECK_STRICTMOD asserts range contracts inside its SIMD
-    paths (sse.hpp:57-67); the kernels compile their own internal stage
-    checks (poisoning the output block on violation), and this wrapper
-    asserts the canonical [0, p) contract on the way in and out — so a
-    poisoned block, or a caller handing lazy values to a strict interface,
-    raises just like the jnp path's per-op asserts."""
-    p = jnp.asarray(ctx.p_col)
-    debug.check_residues(x, p)
-    out = fn(x)
-    debug.check_residues(out, p)
-    return out
-
-
-def kernel_mode() -> str:
-    """The NFL_TPU_NTT override, read at CALL time (the single reader —
-    round-5 review: four dispatch sites each parsed the env var and the
-    platform rule themselves, a drift hazard).  Values: "auto" (platform
-    decides), "jnp" (no kernels), "pallas" (VPU butterfly kernels), "mxu"
-    (fused MXU kernels, interpret mode off-TPU)."""
-    return os.environ.get("NFL_TPU_NTT", "auto")
-
-
-def auto_on_tpu(mesh=None) -> bool:
-    """The platform rule every "auto" dispatch shares: kernels compile on
-    TPU only.  When a MESH is given its devices' platform decides (a CPU
-    mesh in a TPU-default process must NOT get compiled Mosaic — see
-    parallel/ntt_dist._resolved_backends); otherwise the process default
-    backend."""
-    if mesh is not None:
-        try:
-            return mesh.devices.flat[0].platform == "tpu"
-        except Exception:
-            pass
-    return jax.default_backend() == "tpu"
-
-
-def _pallas_backend(ring):
-    """Dispatch policy: Pallas kernels on real TPUs, the jnp path elsewhere
-    (tests, CPU).  Returns the kernel module (ntt_pallas for u16/u32,
-    ntt_pallas_u64 for the paired-u32 62-bit tier) or None.
-    NFL_TPU_NTT=jnp|pallas|mxu overrides."""
-    mode = kernel_mode()
-    if mode == "jnp":
-        return None
-    if ring.limb == "u64":
-        from . import ntt_pallas_u64 as mod
-    else:
-        from . import ntt_pallas as mod
-    if not mod.supports(ring):
-        return None
-    if mode in ("pallas", "mxu"):
-        return mod
-    return mod if auto_on_tpu() else None
-
-
-def _fused_mxu_module(ring):
-    """Fused MXU matmul kernel dispatch: the int8 MXU kernels own every
-    supported shape on TPU.  On-chip shootouts show them >= the VPU
-    butterfly kernels across the range — ~2x at n=2^14 u32 and ~2x at
-    n=256/1024 (docs/BENCHMARKS.md), and 5.1-5.4x over the paired-u32 VPU
-    kernel on the 62-bit tier at n=8192/32768.  NFL_TPU_NTT=pallas forces
-    the VPU kernels instead.  Returns the kernel module or None."""
-    mode = kernel_mode()
-    if mode in ("jnp", "pallas"):
-        return None
-    if ring.limb == "u64":
-        from . import ntt_mxu_u64 as mod
-    else:
-        from . import ntt_mxu as mod
-    if not mod.supports_fused(ring):
-        return None
-    if mode == "mxu":
-        return mod
-    return mod if auto_on_tpu() else None
-
-
-def _use_fused_mxu(ring) -> bool:
-    return _fused_mxu_module(ring) is not None
 
 
 def _stage_tables(ctx: RingContext):
@@ -161,13 +76,10 @@ def ntt(x, ctx: RingContext, *, inverse_tables: bool = False):
     ring = ctx.ring
     x = jnp.asarray(x)
     dt = x.dtype
+    p_col = jnp.asarray(ctx.p_col)
+    debug.check_residues(x, p_col)   # strict mode: inputs must be < p
     if ring.degree == 1:
         return x
-    mod = _pallas_backend(ring)
-    if mod is not None:
-        return mod.ntt_fwd(x, ctx, inverse_tables=inverse_tables,
-                           twist=False)
-    p_col = jnp.asarray(ctx.p_col)
     two_p = (p_col * 2).astype(dt)
     wt, wi, iwt, iwi = _stage_tables(ctx)
     if inverse_tables:
@@ -187,11 +99,7 @@ def ntt(x, ctx: RingContext, *, inverse_tables: bool = False):
 
 def inv_ntt(x, ctx: RingContext):
     """Bit-reverse -> forward pass with inverse twiddles -> bit-reverse
-    (reference core.hpp:539-557).  No n^-1 scaling.  The Pallas path computes
-    the same unique values by direct stage inversion with no permutations."""
-    mod = _pallas_backend(ctx.ring)
-    if mod is not None:
-        return mod.intt_bwd(jnp.asarray(x), ctx, untwist=False)
+    (reference core.hpp:539-557).  No n^-1 scaling."""
     rev = jnp.asarray(ctx.bitrev)
     y = jnp.take(x, rev, axis=-1)
     y = ntt(y, ctx, inverse_tables=True)
@@ -201,18 +109,6 @@ def inv_ntt(x, ctx: RingContext):
 def ntt_pow_phi(x, ctx: RingContext):
     """Negacyclic forward transform: fused shoup(x * phi^i) pre-twist then NTT
     (reference core.hpp:594-600)."""
-    fused = _fused_mxu_module(ctx.ring)
-    if fused is not None:
-        if debug.strictmod_enabled():
-            return _strict_bracket(
-                lambda v: fused.ntt_pow_phi_fused(v, ctx), jnp.asarray(x), ctx)
-        return fused.ntt_pow_phi_fused(jnp.asarray(x), ctx)
-    mod = _pallas_backend(ctx.ring)
-    if mod is not None:
-        if debug.strictmod_enabled():
-            return _strict_bracket(
-                lambda v: mod.ntt_fwd(v, ctx, twist=True), jnp.asarray(x), ctx)
-        return mod.ntt_fwd(jnp.asarray(x), ctx, twist=True)
     phis = jnp.asarray(ctx.phis)
     sphis = jnp.asarray(ctx.shoupphis)
     p_col = jnp.asarray(ctx.p_col)
@@ -223,20 +119,6 @@ def ntt_pow_phi(x, ctx: RingContext):
 def invntt_pow_invphi(x, ctx: RingContext):
     """Inverse transform with fused n^-1 * phi^-i un-twist
     (reference core.hpp:608-614)."""
-    fused = _fused_mxu_module(ctx.ring)
-    if fused is not None:
-        if debug.strictmod_enabled():
-            return _strict_bracket(
-                lambda v: fused.invntt_pow_invphi_fused(v, ctx),
-                jnp.asarray(x), ctx)
-        return fused.invntt_pow_invphi_fused(jnp.asarray(x), ctx)
-    mod = _pallas_backend(ctx.ring)
-    if mod is not None:
-        if debug.strictmod_enabled():
-            return _strict_bracket(
-                lambda v: mod.intt_bwd(v, ctx, untwist=True),
-                jnp.asarray(x), ctx)
-        return mod.intt_bwd(jnp.asarray(x), ctx, untwist=True)
     y = inv_ntt(jnp.asarray(x), ctx)
     itab = jnp.asarray(ctx.invpoly_times_invphis)
     sitab = jnp.asarray(ctx.shoupinvpoly_times_invphis)

@@ -1,7 +1,7 @@
 """Pure-Python scalar oracle for differential testing.
 
 This module re-states the reference's numerical contracts in trivially-correct
-python-int arithmetic. Every fast path (jnp ops, Pallas kernels, sharded
+python-int arithmetic. Every fast path (jnp ops, sharded
 variants) is tested against these, mirroring the reference's own differential
 test strategy (reference tests/test_binary_op.h:9-32).
 

@@ -5,10 +5,10 @@ The framework's three parallel axes (SURVEY.md §2 closing note):
   * "rns"   — tensor parallelism over RNS residue channels (the reference's
               independent `cm` loops, core.hpp:597,610, as a mesh axis);
   * "deg"   — degree (sequence-parallel analog) via the four-step NTT
-              (ntt_dist.py), whose only communication is an ICI all-to-all.
+              (ntt_dist.py), whose only communication is an all-to-all.
 
 batch/rns sharding is zero-communication: every op in ops/modops.py and the
-NTT kernels is elementwise or within-channel, so jit with NamedSharding
+NTT is elementwise or within-channel, so jit with NamedSharding
 propagates the sharding with no collectives.
 """
 from __future__ import annotations
@@ -26,17 +26,16 @@ from ..poly import Poly
 def init_distributed(coordinator_address=None, num_processes=None,
                      process_id=None, **kw):
     """Multi-host entry point: initialize the JAX distributed runtime so
-    jax.devices() spans every host's chips and shard_map collectives ride
-    ICI within a slice / DCN across slices.
+    jax.devices() spans every host's devices and shard_map collectives
+    span them.
 
     Call once per process before any other JAX API, mirroring
     jax.distributed.initialize's contract.  Arguments default to the
     standard environment (JAX_COORDINATOR_ADDRESS / NUM_PROCESSES /
-    PROCESS_ID, or the TPU pod runtime's automatic discovery when all are
-    None).  Returns (process_index, process_count).
+    PROCESS_ID, or the cluster's automatic discovery when all are None).  Returns (process_index, process_count).
 
     The reference has no multi-process story at all (its only scaling axis
-    is SIMD width, SURVEY.md §2 note); this is the TPU-native slot for it.
+    is SIMD width, SURVEY.md §2 note); this is the slot for it.
     """
     if coordinator_address is None:
         coordinator_address = os.environ.get("JAX_COORDINATOR_ADDRESS")

@@ -1,6 +1,6 @@
 """NFLlib-compatible parameter tables (limb types, primes, roots).
 
-TPU-native re-design of the reference's compile-time parameter stratum
+Re-design of the reference's compile-time parameter stratum
 (reference: include/nfl/params.hpp:12-121, lib/params/params.cpp:3-16).
 Tables are loaded from JSON data generated by tools/gen_params.py: the primes,
 Newton quotients and inverses are regenerated from the documented formula and
@@ -9,7 +9,7 @@ primitivity.
 
 Limb tiers (mirroring params.hpp):
   u16: 14-bit moduli,  2 primes, max degree 512
-  u32: 30-bit moduli, 291 primes, max degree 32768   <- TPU-native primary tier
+  u32: 30-bit moduli, 291 primes, max degree 32768   <- primary tier
   u64: 62-bit moduli, 1000 primes, max degree 2^20   <- compatibility tier
 """
 from __future__ import annotations

@@ -2,14 +2,14 @@
 
 A Poly is an immutable pytree holding a residue tensor of shape
 [..., nmoduli, degree] in the ring's limb dtype plus a static `Ring`.  Leading
-axes are free batch dimensions (the TPU-native replacement for the reference's
+axes are free batch dimensions (the replacement for the reference's
 arrays-of-poly).  JAX's immutable arrays give the value semantics that the
 reference's poly_p copy-on-write wrapper (poly_p.hpp:10-204) exists to
 approximate — poly and poly_p collapse into this one type (PolyP is an alias).
 
 Operator sugar mirrors the reference's expression-template surface
 (poly.hpp:346-352): `+ - *` build a lazy `Expr` op tree, and the whole tree
-traces into ONE jitted XLA program when a value is demanded — the TPU analog
+traces into ONE jitted XLA program when a value is demanded — the analog
 of the reference's single-pass assignment loop (core.hpp:25-37): an eager
 chain like `a*b + c - d` makes one HBM round trip, not one per op.  The
 `shoup(a * b, bprec)` pattern rewrite to a fused mulmod_shoup (the one

@@ -1,4 +1,4 @@
-"""On-device polynomial samplers (jit-able, TPU-resident).
+"""On-device polynomial samplers (jit-able, device-resident).
 
 Device tier of the sampling subsystem (reference include/nfl/core.hpp:145-391
 semantics): the Salsa20 keystream is generated on the accelerator
@@ -242,14 +242,18 @@ def device_gaussian_exact(ring: Ring, key: bytes, nonce, mode: gaussian,
     # one keystream CALL per refill block, exactly like the host walk:
     # Salsa20Stream.randombytes bumps the nonce once per call (the
     # reference fastrandombytes quirk), so fill k reads the start of the
-    # (nonce + k) stream — blocks are NOT contiguous keystream bytes
-    per_fill = []
-    for k in range(nblocks):
-        if ib == 8:
-            per_fill.append(_stream_bytes(key, nonce + k, innoise))
-        else:
-            per_fill.append(_stream_limbs(key, nonce + k, innoise, 2))
-    words = jnp.stack(per_fill).astype(jnp.int32)      # [nblocks, innoise]
+    # (nonce + k) stream — blocks are NOT contiguous keystream bytes.
+    # One Salsa20 graph vmapped over the fills (an unrolled loop per fill
+    # multiplied the compile time by nblocks).
+    fill_nonces = (jnp.asarray(nonce).astype(jnp.uint64)
+                   + jnp.arange(nblocks, dtype=jnp.uint64))
+    if ib == 8:
+        words = jax.vmap(lambda nc: _stream_bytes(key, nc, innoise))(
+            fill_nonces)
+    else:
+        words = jax.vmap(lambda nc: _stream_limbs(key, nc, innoise, 2))(
+            fill_nonces)
+    words = words.astype(jnp.int32)                     # [nblocks, innoise]
 
     # per-position consumption -> successor table with sentinel = innoise
     luf = jnp.asarray(fg.lu_flag)
@@ -413,7 +417,7 @@ def _hwt_positions_from_words(W, n: int, h: int, amb_cap: int):
     order = _jnp.sort(hitted)
     T = _jnp.sum(consumed.astype(_jnp.int32))         # words popped
     fills_res = (T + h - 1) // h                      # ceil: refill-on-empty
-    # budget guard (ADVICE round 4): the walk above is only exact when the
+    # budget guard: the walk above is only exact when the
     # ambiguous set fit amb_cap and the budgeted stream held n-h accepts
     n_accepted = _jnp.sum(acc)
     ok = (amb_count <= _jnp.int32(amb_cap)) & \
@@ -458,7 +462,7 @@ def device_hwt_exact(ring: Ring, key: bytes, nonce, mode,
                      jnp.zeros_like(p_col))
     mask = jnp.asarray((1 << lp.repr_bits) - 1, dtype=jnp.uint64)
     out = (vals & mask).astype(lp.dtype)
-    # budget guard (ADVICE round 4): if the walk's assumptions were
+    # budget guard: if the walk's assumptions were
     # exceeded (probability ~2^-44 per word), poison every residue with the
     # out-of-range sentinel `mask` (>= p, fails any strict-mod/range check)
     # and report fills -1 — loud, detectable divergence instead of silent

@@ -13,9 +13,8 @@ Re-design of the reference's CDF-inversion sampler
     computed by replaying the reference's exact MPFR op sequence against
     libmpfr via ctypes (mpfr_barriers.py), so they are bit-identical to the
     reference's (:296-368; anchored by tests/test_golden_interop.py).  When
-    libmpfr is absent the mpmath fallback computes nearly-exactly-rounded
-    values that may differ from MPFR's working-precision accumulation in the
-    low bits.
+    libmpfr is absent the same sequence is replayed with Python integers and
+    `decimal`, rounding as MPFR does after every op.
   * host sampling reproduces the reference's *stream consumption* exactly:
     a 1.05/2.0/word_precision-weighted input buffer drawn in one
     fastrandombytes call, two-level uint8 lookup, full-precision barrier walk
@@ -30,7 +29,6 @@ from __future__ import annotations
 import math
 
 import numpy as np
-from mpmath import mp, mpf
 
 from .salsa20 import Salsa20Stream
 
@@ -87,38 +85,19 @@ class FastGaussianNoise:
         self.bit_precision = self.word_precision * in_bits
         self.number_of_barriers = 1 + 2 * math.ceil(self.tail_bound * self.sigma)
 
-        # precomputeBarrierValues() (:296-368).  Primary path: replay the
-        # reference's exact MPFR op sequence against libmpfr via ctypes —
-        # bit-identical barriers (mpfr_barriers.py, anchored by the golden
-        # interop vectors).  Fallback: mpmath with guard bits, which computes
-        # the nearly-exactly-rounded values; those can differ from MPFR's
-        # working-precision accumulation in the low bits.
-        lo = self.rounded_center - (self.number_of_barriers - 1) // 2
+        # precomputeBarrierValues() (:296-368): replay the reference's exact
+        # MPFR op sequence — against libmpfr via ctypes where it loads, else
+        # in the standard library with the same per-op rounding — so the
+        # barriers are bit-identical (mpfr_barriers.py, anchored by the
+        # golden interop vectors).
         from . import mpfr_barriers
-        if mpfr_barriers.available():
-            self.barriers = mpfr_barriers.compute_barriers(
-                self.sigma, self.center, self.rounded_center,
-                self.number_of_barriers, self.bit_precision)
-        else:
-            old_prec = mp.prec
-            try:
-                mp.prec = self.bit_precision + 96
-                inv_2s2 = 1 / (2 * mpf(self.sigma) ** 2)
-                c = mpf(self.center)
-                probs = []
-                for i in range(self.number_of_barriers):
-                    x = mpf(lo + i)
-                    probs.append(mp.exp(-((x - c) ** 2) * inv_2s2))
-                total = mp.fsum(probs)
-                scale = (mpf(2) ** self.bit_precision - 1) / total
-                self.barriers = []
-                acc = mpf(0)
-                for pr in probs:
-                    acc += pr
-                    self.barriers.append(int(mp.nint(acc * scale)))
-            finally:
-                mp.prec = old_prec
-        self.base_value = lo  # value attached to the region below barrier 0
+        compute = (mpfr_barriers.compute_barriers
+                   if mpfr_barriers.available()
+                   else mpfr_barriers.compute_barriers_decimal)
+        self.barriers = compute(self.sigma, self.center, self.rounded_center,
+                                self.number_of_barriers, self.bit_precision)
+        # value attached to the region below barrier 0
+        self.base_value = self.rounded_center - (self.number_of_barriers - 1) // 2
 
         self._build_lookup_tables()
         # float32 arithmetic for buffer sizing, matching the reference (:488-496)

@@ -19,13 +19,19 @@ exact same op sequence against the same library:
 Every step at precision `bit_precision`, MPFR_RNDN, except `_center` which
 the reference creates with mpfr_init_set_d at MPFR's default precision (53).
 
-Falls back to None when libmpfr/libgmp are not loadable; callers then use
-the mpmath approximation (documented as potentially off in the final ulps).
+`compute_barriers` runs that sequence in libmpfr through ctypes.  Where
+libmpfr/libgmp cannot be loaded, `compute_barriers_decimal` replays the same
+sequence in the standard library alone: every value is an exact Fraction,
+rounded to `bit_precision` bits (nearest, ties to even) after each op, and
+exp is evaluated with `decimal` at 96 guard bits before that rounding.
 """
 from __future__ import annotations
 
 import ctypes
 import ctypes.util
+import decimal
+import math
+from fractions import Fraction
 
 
 class _MpfrT(ctypes.Structure):
@@ -176,4 +182,80 @@ def compute_barriers(sigma: float, center: float, rounded_center: int,
     _GMP.__gmpz_clear(ctypes.byref(z))
     for v in bars + [c_center, cs, ssum, tmp, tmp2]:
         _MPFR.mpfr_clear(ctypes.byref(v))
+    return out
+
+
+_GUARD_BITS = 96
+
+
+def _round_half_even(num: int, den: int) -> int:
+    """num/den (den > 0) rounded to the nearest integer, ties to even."""
+    q, r = divmod(num, den)
+    if 2 * r > den or (2 * r == den and q & 1):
+        q += 1
+    return q
+
+
+def _rnd(x: Fraction, prec: int) -> Fraction:
+    """x rounded to a binary float with `prec` significant bits (MPFR_RNDN)."""
+    if x == 0:
+        return x
+    sign = -1 if x < 0 else 1
+    num, den = abs(x.numerator), x.denominator
+    e = num.bit_length() - den.bit_length()      # 2^(e-1) < |x| < 2^(e+1)
+    if Fraction(num, den) < Fraction(2) ** e:
+        e -= 1                                   # now 2^e <= |x| < 2^(e+1)
+    shift = prec - 1 - e                         # scale |x| into [2^(p-1), 2^p)
+    if shift >= 0:
+        m = _round_half_even(num << shift, den)
+    else:
+        m = _round_half_even(num, den << -shift)
+    return sign * Fraction(m) * Fraction(2) ** -shift
+
+
+def _exp(x: Fraction, prec: int) -> Fraction:
+    """exp(x) rounded to `prec` bits, evaluated in decimal with guard bits."""
+    digits = math.ceil((prec + _GUARD_BITS) * math.log10(2)) + 2
+    ctx = decimal.Context(prec=digits, rounding=decimal.ROUND_HALF_EVEN,
+                          Emin=-10**9, Emax=10**9)
+    d = ctx.divide(decimal.Decimal(x.numerator),
+                   decimal.Decimal(x.denominator))
+    return _rnd(Fraction(ctx.exp(d)), prec)
+
+
+def compute_barriers_decimal(sigma: float, center: float,
+                             rounded_center: int, number_of_barriers: int,
+                             bit_precision: int) -> list:
+    """compute_barriers without libmpfr: the same op sequence, each result
+    rounded to `bit_precision` bits exactly as MPFR rounds it."""
+    prec = int(bit_precision)
+    nb = int(number_of_barriers)
+
+    def rnd(v):
+        return _rnd(v, prec)
+
+    c_center = _rnd(Fraction(float(center)), 53)
+    cs = rnd(Fraction(float(sigma)))
+    cs = rnd(cs * cs)
+    cs = rnd(cs * 2)
+    cs = rnd(1 / cs)
+
+    ssum = Fraction(0)
+    bars = []
+    lo = rounded_center - (nb - 1) // 2
+    for i in range(nb):
+        tmp = rnd(Fraction(lo + i) - c_center)
+        tmp = rnd(tmp * tmp)
+        tmp = rnd(-tmp * cs)
+        tmp = _exp(tmp, prec)
+        bars.append(tmp if i == 0 else rnd(bars[-1] + tmp))
+        ssum = rnd(ssum + tmp)
+
+    ssum = rnd(1 / ssum)
+    scale = rnd(Fraction((1 << prec) - 1))
+    ssum = rnd(ssum * scale)
+    out = []
+    for b in bars:
+        v = rnd(b * ssum)
+        out.append(_round_half_even(v.numerator, v.denominator))
     return out

@@ -1,6 +1,6 @@
 """Salsa20/20 stream cipher — the framework's cryptographic PRNG.
 
-TPU-native replacement for the reference's qhasm-generated x86-64 assembly
+Replacement for the reference's qhasm-generated x86-64 assembly
 stream (reference lib/prng/nfl_crypto_stream_salsa20_amd64_xmm6.s, driven by
 lib/prng/fastrandombytes.cpp:21-34): the same crypto_stream_salsa20 function
 (32-byte key, 8-byte nonce, 64-bit little-endian block counter starting at 0,
@@ -9,7 +9,7 @@ identical byte stream for identical (key, nonce).
 
 Three execution tiers share one core:
   * numpy (host)  — vectorized across blocks; used by host-side samplers.
-  * jnp (device)  — identical code via the array-namespace parameter; jit/TPU.
+  * jnp (device)  — identical code via the array-namespace parameter; jit.
   * native (host) — optional C++ implementation (csrc/salsa20.c) via ctypes,
                     mirroring the reference's native PRNG tier; used
                     automatically when built.

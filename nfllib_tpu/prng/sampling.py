@@ -4,7 +4,7 @@ Host tier: consumes a Salsa20Stream exactly like the reference's
 fastrandombytes-driven samplers — same number of calls, same byte
 interpretation, same masking quirks — so residue arrays are byte-identical to
 the reference's for the same (key, nonce).  Device tier (uniform / bounded /
-ternary) reproduces the same values on-TPU from the same keystream blocks.
+ternary) reproduces the same values on the device from the same keystream blocks.
 
 Sampler catalogue and their reference quirks, all preserved:
   * uniform: one stream call of m*n*itemsize bytes; per channel mask to the

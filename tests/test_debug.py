@@ -87,67 +87,39 @@ def test_flag_toggles():
     _ = bad + bad               # no check when disabled
 
 
-def test_kernel_boundary_bracket_catches_bad_input():
-    """Strict mode must bracket the Pallas/MXU kernel dispatch too
-    (reference sse.hpp:57-67 asserts in its SIMD paths): an out-of-range
-    input on the fused-kernel path raises at the wrapper boundary."""
-    import os
+@pytest.mark.parametrize("limb,agg", [("u16", 14), ("u32", 60), ("u64", 124)])
+@pytest.mark.parametrize("direction", ["forward", "inverse"])
+def test_transform_boundary_rejects_out_of_range(limb, agg, direction):
+    """Strict mode asserts the [0, p) contract on a transform's input
+    (reference sse.hpp:57-67 asserts in its NTT paths), eagerly and inside
+    jit."""
     import jax
     from nfllib_tpu.ops import ntt as ntt_mod
-    from nfllib_tpu.ops import ntt_mxu
 
-    ring = nfl.ring_from_modulus("u32", 256, 60)
+    ring = nfl.ring_from_modulus(limb, 64, agg)
     ctx = ring.context()
-    prev = os.environ.get("NFL_TPU_NTT")
-    os.environ["NFL_TPU_NTT"] = "mxu"     # force the fused-kernel dispatch
-    try:
-        assert ntt_mod._fused_mxu_module(ring) is ntt_mxu
-        bad = jnp.full(ring.shape, jnp.uint32(0xFFFFFFFF))
-        with pytest.raises(AssertionError, match="STRICTMOD"):
-            ntt_mod.ntt_pow_phi(bad, ctx)
-    finally:
-        if prev is None:
-            os.environ.pop("NFL_TPU_NTT", None)
-        else:
-            os.environ["NFL_TPU_NTT"] = prev
+    fn = (ntt_mod.ntt_pow_phi if direction == "forward"
+          else ntt_mod.invntt_pow_invphi)
+    bad = jnp.full(ring.shape, int(ring.moduli[0]), dtype=ring.dtype)
+    with pytest.raises(AssertionError, match="STRICTMOD"):
+        fn(bad, ctx)
+    with pytest.raises(Exception, match="STRICTMOD"):
+        np.asarray(jax.jit(lambda v: fn(v, ctx))(bad))
 
 
-def test_kernel_strict_build_bit_identical():
-    """The strict kernel build (in-kernel stage checks + poison epilogue)
-    must produce bit-identical outputs to the normal build on valid data."""
-    import os
-    import numpy as np
-    from nfllib_tpu.ops import ntt_mxu
+@pytest.mark.parametrize("limb,agg", [("u16", 14), ("u32", 60), ("u64", 124)])
+def test_strict_transforms_bit_identical(limb, agg):
+    """On valid data the strict build gives the same outputs as the normal
+    one, forward and inverse."""
+    from nfllib_tpu.ops import ntt as ntt_mod
     from nfllib_tpu.prng.salsa20 import Salsa20Stream
 
-    ring = nfl.ring_from_modulus("u32", 256, 60)
+    ring = nfl.ring_from_modulus(limb, 128, agg)
     ctx = ring.context()
-    s = Salsa20Stream(b"\x02" * 32)
-    x = nfl.Poly.sample(ring, nfl.uniform(), s).data
+    x = nfl.Poly.sample(ring, nfl.uniform(), Salsa20Stream(b"\x02" * 32)).data
+    strict_f = np.asarray(ntt_mod.ntt_pow_phi(x, ctx))
+    strict_i = np.asarray(ntt_mod.invntt_pow_invphi(strict_f, ctx))
     debug.set_strictmod(False)
-    base_f = np.asarray(ntt_mxu.ntt_pow_phi_fused(x, ctx, interpret=True))
-    base_i = np.asarray(
-        ntt_mxu.invntt_pow_invphi_fused(base_f, ctx, interpret=True))
-    debug.set_strictmod(True)
-    strict_f = np.asarray(ntt_mxu.ntt_pow_phi_fused(x, ctx, interpret=True))
-    strict_i = np.asarray(
-        ntt_mxu.invntt_pow_invphi_fused(strict_f, ctx, interpret=True))
-    np.testing.assert_array_equal(base_f, strict_f)
-    np.testing.assert_array_equal(base_i, strict_i)
+    np.testing.assert_array_equal(np.asarray(ntt_mod.ntt_pow_phi(x, ctx)),
+                                  strict_f)
     np.testing.assert_array_equal(strict_i, np.asarray(x))
-
-
-def test_kernel_strict_build_u64_bit_identical():
-    import numpy as np
-    from nfllib_tpu.ops import ntt_mxu_u64
-    from nfllib_tpu.prng.salsa20 import Salsa20Stream
-
-    ring = nfl.ring_from_modulus("u64", 64, 124)
-    ctx = ring.context()
-    s = Salsa20Stream(b"\x03" * 32)
-    x = nfl.Poly.sample(ring, nfl.uniform(), s).data
-    debug.set_strictmod(False)
-    base = np.asarray(ntt_mxu_u64.ntt_pow_phi_fused(x, ctx, interpret=True))
-    debug.set_strictmod(True)
-    strict = np.asarray(ntt_mxu_u64.ntt_pow_phi_fused(x, ctx, interpret=True))
-    np.testing.assert_array_equal(base, strict)

@@ -124,7 +124,7 @@ def test_poly_sample_on_device(fg):
 
 
 # ---------------------------------------------------------------------------
-# stream-exact device Gaussian + device hwt (round-2 VERDICT item 7)
+# stream-exact device Gaussian + device hwt
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("cfg", [
@@ -212,7 +212,7 @@ def test_device_hwt_subset_uniformity():
 
 
 # ---------------------------------------------------------------------------
-# stream-exact device hwt (round-3 VERDICT item 6)
+# stream-exact device hwt
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("degree,agg,limb", CONFIGS)
@@ -294,7 +294,7 @@ def test_hwt_word_core_resolves_rejections():
 
 
 def test_hwt_word_core_budget_guard():
-    """The ok flag trips (ADVICE round 4) when either exactness assumption
+    """The ok flag trips when either exactness assumption
     breaks: more ambiguous words than amb_cap, or fewer accepted words than
     the reservoir needs — instead of silently diverging."""
     import jax.numpy as jnp

@@ -2,7 +2,7 @@
 
 The reference's expression templates evaluate arbitrary op chains in a single
 pass over the coefficient array (reference include/nfl/ops.hpp:52-97,
-core.hpp:25-37).  The TPU analog: `+ - *` build an Expr tree and evaluation
+core.hpp:25-37).  Here: `+ - *` build an Expr tree and evaluation
 traces the whole tree into one jitted XLA program (poly._chain_program).
 """
 import numpy as np

@@ -86,3 +86,47 @@ def test_gaussian_poly_encoding(fg):
         pm = int(ring.moduli[cm])
         want = np.where(noise < 0, pm + noise, noise)
         np.testing.assert_array_equal(arr[cm].astype(np.int64), want)
+
+
+@pytest.mark.parametrize("security,samples", [
+    (80, 1 << 10), (128, 1 << 10), (128, 1 << 14), (256, 1 << 16)])
+@pytest.mark.parametrize("sigma", [2.0, 4.0, 8.0])
+def test_decimal_barriers_match_libmpfr(sigma, security, samples):
+    """The standard-library replay of the reference's MPFR op sequence gives
+    the barriers libmpfr gives, bit for bit."""
+    from nfllib_tpu.prng import mpfr_barriers
+
+    if not mpfr_barriers.available():
+        pytest.skip("libmpfr not loadable: nothing to compare against")
+    g = FastGaussianNoise(sigma, security, samples)
+    args = (g.sigma, g.center, g.rounded_center, g.number_of_barriers,
+            g.bit_precision)
+    assert mpfr_barriers.compute_barriers_decimal(*args) == \
+        mpfr_barriers.compute_barriers(*args)
+
+
+def test_sampler_without_libmpfr_matches(monkeypatch):
+    """With libmpfr unavailable the sampler builds the same tables."""
+    from nfllib_tpu.prng import mpfr_barriers
+
+    want = FastGaussianNoise(4.0, 128, 1 << 10, center=0.3).barriers
+    monkeypatch.setattr(mpfr_barriers, "available", lambda: False)
+    got = FastGaussianNoise(4.0, 128, 1 << 10, center=0.3)
+    assert got.barriers == want
+
+
+def test_lwe_imports_without_mpmath(monkeypatch):
+    """The LWE app (the main path) needs no mpmath: a fresh import of the
+    package succeeds with mpmath made unimportable."""
+    import importlib
+    import sys
+
+    for name in [m for m in sys.modules if m == "nfllib_tpu"
+                 or m.startswith("nfllib_tpu.")]:
+        monkeypatch.delitem(sys.modules, name)
+    monkeypatch.setitem(sys.modules, "mpmath", None)
+    with pytest.raises(ImportError):
+        import mpmath  # noqa: F401
+    lwe = importlib.import_module("nfllib_tpu.apps.lwe")
+    g = lwe.make_gaussian_prng()
+    assert g.barriers == FastGaussianNoise(4.0, 128, 1 << 10).barriers

@@ -123,3 +123,90 @@ def test_random_config_property_fuzz(rng):
             np.asarray(a.data), np.asarray(b.data), ring)
         np.testing.assert_array_equal(
             np.asarray(prod.data).astype(object), want)
+
+
+# Ring configurations across the three limb tiers: the reference matrix's
+# points, each tier's largest degree the tables allow in test time, odd
+# channel counts, and 2-channel u16.
+TRANSFORM_CONFIGS = [
+    (8, 60, "u32"), (64, 60, "u32"), (256, 60, "u32"), (512, 90, "u32"),
+    (1024, 60, "u32"), (4096, 60, "u32"), (8192, 60, "u32"),
+    (128, 14, "u16"), (256, 28, "u16"), (512, 14, "u16"),
+    (64, 124, "u64"), (256, 62, "u64"), (256, 124, "u64"),
+    (512, 124, "u64"), (1024, 124, "u64"), (8192, 124, "u64"),
+]
+
+
+def _oracle_batched(fn, x, ctx):
+    flat = x.reshape((-1,) + x.shape[-2:])
+    return np.stack([fn(v, ctx) for v in flat]).reshape(x.shape)
+
+
+@pytest.mark.parametrize("degree,agg,limb", TRANSFORM_CONFIGS)
+def test_forward_matches_oracle(degree, agg, limb, rng):
+    ring = make_ring(degree, agg, limb)
+    ctx = ring.context()
+    x = rand_residues(ring, rng, batch=(2,))
+    got = np.asarray(jax.jit(lambda v: ntt_mod.ntt_pow_phi(v, ctx))(x))
+    np.testing.assert_array_equal(
+        got, _oracle_batched(oracle.ntt_pow_phi, x, ctx))
+
+
+@pytest.mark.parametrize("degree,agg,limb", TRANSFORM_CONFIGS)
+def test_inverse_matches_oracle(degree, agg, limb, rng):
+    ring = make_ring(degree, agg, limb)
+    ctx = ring.context()
+    x = rand_residues(ring, rng, batch=(2,))
+    f = _oracle_batched(oracle.ntt_pow_phi, x, ctx)
+    got = np.asarray(jax.jit(lambda v: ntt_mod.invntt_pow_invphi(v, ctx))(f))
+    np.testing.assert_array_equal(
+        got, _oracle_batched(oracle.invntt_pow_invphi, f, ctx))
+    np.testing.assert_array_equal(got, x)
+
+
+@pytest.mark.parametrize("inverse_tables", [False, True])
+@pytest.mark.parametrize("degree,agg,limb", [
+    (256, 60, "u32"), (512, 14, "u16"), (256, 124, "u64"),
+    (1024, 124, "u64")])
+def test_plain_pass_matches_oracle(degree, agg, limb, inverse_tables, rng):
+    """ntt() alone (no twist, no permutation) with the forward or the
+    inverse twiddle tables."""
+    ring = make_ring(degree, agg, limb)
+    ctx = ring.context()
+    x = rand_residues(ring, rng)
+    got = np.asarray(ntt_mod.ntt(x, ctx, inverse_tables=inverse_tables))
+    w, ws = ((ctx.invomegas, ctx.shoupinvomegas) if inverse_tables
+             else (ctx.omegas, ctx.shoupomegas))
+    for cm in range(ring.nmoduli):
+        want = oracle.ntt(x[cm], w[cm], ws[cm], int(ring.moduli[cm]),
+                          ring.repr_bits)
+        np.testing.assert_array_equal(got[cm].astype(object), want)
+
+
+@pytest.mark.parametrize("degree,agg,limb", [
+    (256, 60, "u32"), (512, 14, "u16"), (256, 124, "u64")])
+def test_raw_inverse_matches_oracle(degree, agg, limb, rng):
+    """inv_ntt (bit-reverse, inverse-table pass, bit-reverse; no n^-1)."""
+    ring = make_ring(degree, agg, limb)
+    ctx = ring.context()
+    x = rand_residues(ring, rng)
+    got = np.asarray(ntt_mod.inv_ntt(x, ctx))
+    for cm in range(ring.nmoduli):
+        want = oracle.inv_ntt(x[cm], ctx.invomegas[cm],
+                              ctx.shoupinvomegas[cm],
+                              int(ring.moduli[cm]), ring.repr_bits)
+        np.testing.assert_array_equal(got[cm].astype(object), want)
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("batch", [(), (3,), (2, 5)])
+def test_odd_batch_shapes(batch, inverse, rng):
+    """Leading batch axes of any shape transform element by element."""
+    ring = make_ring(256, 60, "u32")
+    ctx = ring.context()
+    x = rand_residues(ring, rng, batch=batch)
+    fn = ntt_mod.invntt_pow_invphi if inverse else ntt_mod.ntt_pow_phi
+    ref = oracle.invntt_pow_invphi if inverse else oracle.ntt_pow_phi
+    got = np.asarray(fn(jnp.asarray(x), ctx))
+    assert got.shape == x.shape
+    np.testing.assert_array_equal(got, _oracle_batched(ref, x, ctx))

@@ -1,6 +1,6 @@
 """Gaussian sampler statistical harness — the reference's prng_demo_main
 (tests/prng_demo_main.cpp:6-35: 5*10^7 samples, cycles/bit, sample dump for
-offline distribution checks) re-created for the TPU framework.
+offline distribution checks) re-created for this library.
 
 Usage: python tools/prng_bench.py [--samples N] [--dump FILE] [--sigma S]
 """
